@@ -1,6 +1,7 @@
-"""TPU-side profiling: chunk-size sweep with prep/sync split.
+"""Engine chunk-size sweep with the prep/send/sync split, on the bench's
+1,600-variant fixture and JAX's default backend.
 
-Usage: timeout 500 python scripts/profile_tpu.py [chunks...]
+Usage: python scripts/chunk_sweep.py [chunks...]   (default 1024 2048 4096)
 """
 from __future__ import annotations
 
@@ -10,17 +11,15 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-CACHE = os.environ.get("SVT_BENCH_CACHE", "/tmp/svtyper_tpu_bench")
-TAG = "v3_n1600_d30"
-
 
 def main():
     import jax
 
-    jax.config.update(
-        "jax_compilation_cache_dir", os.path.join(CACHE, "jaxcache")
-    )
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    import bench
+    from svtyper_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
+    bam, vcf_path = bench.build_fixture(n_variants=1600)
 
     from svtyper_tpu.bamio.bam import BamFile
     from svtyper_tpu.breakpoints import resolve_breakpoint
@@ -29,8 +28,6 @@ def main():
     from svtyper_tpu.vcfio.model import Variant, Vcf
     from svtyper_tpu.vcfio.reader import read_vcf_lines
 
-    bam = os.path.join(CACHE, "bench_%s.bam" % TAG)
-    vcf_path = os.path.join(CACHE, "bench_%s.vcf" % TAG)
     sample = Sample.from_bam(BamFile(bam), num_samp=200_000)
     vcf = Vcf()
     with open(vcf_path) as fh:

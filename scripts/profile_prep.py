@@ -15,8 +15,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 
-CACHE = os.environ.get("SVT_BENCH_CACHE", "/tmp/svtyper_tpu_bench")
-TAG = "v3_n1600_d30"
 
 
 def main():
@@ -27,8 +25,9 @@ def main():
     from svtyper_tpu.vcfio.model import Variant, Vcf
     from svtyper_tpu.vcfio.reader import read_vcf_lines
 
-    bam = os.path.join(CACHE, "bench_%s.bam" % TAG)
-    vcf_path = os.path.join(CACHE, "bench_%s.vcf" % TAG)
+    import bench
+
+    bam, vcf_path = bench.build_fixture(n_variants=1600)
     sample = Sample.from_bam(BamFile(bam), num_samp=200_000)
     vcf = Vcf()
     with open(vcf_path) as fh:

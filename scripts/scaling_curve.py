@@ -2,10 +2,9 @@
 
 Runs the integrated multi-chip engine (TpuEngine + shard_map) over
 1/2/4/8 virtual CPU devices on the bench fixture and reports variants/s
-per mesh size. On this 2-core host the curve validates the sharding
-math and pad-geometry discipline (byte-identical outputs, rectangular
-[D, ...] stacks), not wall-clock speedup — all virtual devices share
-the same cores.
+per mesh size. The curve validates the sharding math and pad-geometry
+discipline (byte-identical outputs, rectangular [D, ...] stacks), not
+wall-clock speedup — all virtual devices share the same cores.
 
 Usage: python scripts/scaling_curve.py [n_variants]
 """
@@ -25,8 +24,6 @@ if "xla_force_host_platform_device_count" not in xla:
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-CACHE = os.environ.get("SVT_BENCH_CACHE", "/tmp/svtyper_tpu_bench")
-TAG = "v3_n1600_d30"
 
 
 def main():
@@ -41,10 +38,9 @@ def main():
     from svtyper_tpu.vcfio.model import Variant, Vcf
     from svtyper_tpu.vcfio.reader import read_vcf_lines
 
-    bam = os.path.join(CACHE, "bench_%s.bam" % TAG)
-    vcf_path = os.path.join(CACHE, "bench_%s.vcf" % TAG)
-    if not os.path.exists(bam):
-        raise SystemExit("bench fixture missing; run bench.py once first")
+    import bench
+
+    bam, vcf_path = bench.build_fixture(n_variants=1600)
     sample = Sample.from_bam(BamFile(bam), num_samp=200_000)
     vcf = Vcf()
     with open(vcf_path) as fh:

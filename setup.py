@@ -14,7 +14,7 @@ setup(
     name="svtyper-tpu",
     version=version["__version__"],
     description=(
-        "TPU-native Bayesian structural-variant genotyper "
+        "JAX Bayesian structural-variant genotyper "
         "(capabilities of hall-lab/svtyper)"
     ),
     long_description=open(os.path.join(HERE, "README.md")).read(),

@@ -1,7 +1,7 @@
-"""svtyper-tpu — a TPU-native structural-variant genotyping framework.
+"""svtyper-tpu — a JAX structural-variant genotyping framework.
 
 A from-scratch re-design of the capabilities of ``hall-lab/svtyper``
-(Chiang et al., Nat Methods 2015) for TPU hardware:
+(Chiang et al., Nat Methods 2015) for accelerators under XLA:
 
 - ``bamio``     BAM/BGZF/BAI decoding to columnar numpy batches (C++ core
                 with a pure-Python fallback) — replaces pysam/htslib.

@@ -1,6 +1,6 @@
 // bamcore: native BGZF + BAM record decoder → columnar buffers.
 //
-// The TPU-native counterpart of the reference's htslib dependency
+// This framework's counterpart of the reference's htslib dependency
 // (SURVEY.md §2.1 "Native components"): the reference delegates BGZF
 // inflate / record decode to htslib C via pysam; here the same layer is
 // a from-scratch C++17 core exposed through a plain C ABI (no pybind11

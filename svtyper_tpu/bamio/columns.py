@@ -4,7 +4,7 @@ The unit of data flowing out of ``bamio`` and into ``evidence``: all reads
 of one BAM region fetch, decoded into dense numpy columns. This replaces
 the reference's per-read ``pysam.AlignedSegment`` objects (SURVEY.md §3.1
 inner hot loop) so classification is vectorized and, downstream, feedable
-to the TPU as fixed-shape tensors.
+to the device as fixed-shape tensors.
 """
 
 from __future__ import annotations

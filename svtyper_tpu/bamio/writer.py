@@ -11,12 +11,17 @@ from __future__ import annotations
 import struct
 from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
+
 from svtyper_tpu.bamio.bai import BaiBuilder
 from svtyper_tpu.bamio.bgzf import BgzfWriter
 from svtyper_tpu.bamio.cigar import CigarFeatures
 from svtyper_tpu.bamio.columns import FUNMAP
 
-_SEQ_CODE = {c: i for i, c in enumerate("=ACMGRSVTWYHKDBN")}
+# base letter (either case) → 4-bit BAM code; anything else → 15 (N)
+_SEQ_LUT = np.full(256, 15, dtype=np.uint8)
+for _i, _c in enumerate("=ACMGRSVTWYHKDBN"):
+    _SEQ_LUT[ord(_c)] = _SEQ_LUT[ord(_c.lower())] = _i
 
 
 def encode_record(
@@ -61,14 +66,10 @@ def encode_record(
     body += name
     for op, ln in cigar:
         body += struct.pack("<I", (ln << 4) | op)
-    packed = bytearray((l_seq + 1) // 2)
-    for i, c in enumerate(seq):
-        code = _SEQ_CODE.get(c.upper(), 15)
-        if i % 2 == 0:
-            packed[i // 2] = code << 4
-        else:
-            packed[i // 2] |= code
-    body += packed
+    codes = _SEQ_LUT[np.frombuffer(seq.encode("ascii", "replace"), np.uint8)]
+    if l_seq % 2:
+        codes = np.append(codes, np.uint8(0))
+    body += ((codes[0::2] << 4) | codes[1::2]).tobytes()
     body += qual if qual is not None else b"\xff" * l_seq
     _SCALAR = {"c": "<b", "C": "<B", "s": "<h", "S": "<H", "i": "<i",
                "I": "<I", "f": "<f"}

@@ -5,7 +5,7 @@ Replaces the per-read Python loop of ``classic.py::sv_genotype``
 
 - ``extract`` (host): BAM fetch → columnar batches → flat, padded,
   fixed-shape chunk tensors (reads / fragment-pairs / variants).
-- ``device`` (TPU): all predicates and weighted evidence sums as one
+- ``device``: all predicates and weighted evidence sums as one
   fused XLA program (segment-sums by variant), feeding the GL kernel.
 """
 

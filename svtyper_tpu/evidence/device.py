@@ -5,8 +5,8 @@ Every predicate of the reference's per-fragment Python loop
 elementwise mask over flat read/pair tensors; the five evidence
 accumulators become weighted segment-sums by variant. Runs under one
 ``jit`` together with the GL kernel (``svtyper_tpu.ops``) so XLA fuses
-the whole numeric path; float dtype is f64 on CPU (oracle parity) and
-f32 on TPU.
+the whole numeric path; float dtype is f64 under x64 (oracle parity)
+and f32 otherwise.
 """
 
 from __future__ import annotations
@@ -24,6 +24,47 @@ def prob_mapq(mapq, dtype):
     return 1.0 - jnp.power(jnp.asarray(10.0, dtype), -mapq.astype(dtype) / 10.0)
 
 
+_UNROLL = 8  # rows per segment added in one loop step
+
+
+def sorted_segment_sum(data, seg, num_segments: int):
+    """Sum the rows of ``data`` [N, C] by ascending segment id ``seg`` [N]
+    into [num_segments, C]; rows with ``seg >= num_segments`` are dropped.
+
+    Each segment adds its rows in row order, as a sequential scatter
+    does: the same sums as ``jax.ops.segment_sum`` on the CPU, and the
+    same bits on every run. A GPU scatter-add accumulates in whatever
+    order its atomics land, so its last bit changes from run to run —
+    and the printed FORMAT counts are truncations of these sums. The
+    loop takes one step per ``_UNROLL`` rows of the longest segment;
+    each step gathers one row per segment."""
+    n, width = data.shape
+    ids = jnp.arange(num_segments, dtype=seg.dtype)
+    start = jnp.searchsorted(seg, ids, side="left").astype(jnp.int32)
+    length = (
+        jnp.searchsorted(seg, ids, side="right").astype(jnp.int32) - start
+    )
+    acc0 = jnp.zeros((num_segments, width), data.dtype)
+    if n == 0:
+        return acc0
+
+    def step(carry):
+        k, acc = carry
+        for j in range(_UNROLL):
+            take = (k + j < length)[:, None]
+            row = data[jnp.minimum(start + k + j, n - 1)]
+            acc = acc + jnp.where(take, row, 0.0)
+        return k + _UNROLL, acc
+
+    max_len = jnp.max(length)
+    # the first step runs outside the loop, so that under shard_map the
+    # loop's carry already varies over the mesh like the data it sums
+    _, acc = jax.lax.while_loop(
+        lambda carry: carry[0] < max_len, step, step((jnp.int32(0), acc0))
+    )
+    return acc
+
+
 def classify_compact(
     cr_u16, cr_u8, cp_u16, cp_i32, cp_u8, v32, v8,
     dens: jnp.ndarray,
@@ -37,7 +78,8 @@ def classify_compact(
     weighting, the §4.3 insert-density re-partition, and the
     variant segment-sums — producing counts identical to ``classify``
     over the full columns (tests/test_compact.py). Rows are grouped by
-    ascending variant (engine layout), so sorted segment-sums apply.
+    ascending variant (engine layout; padding rows carry var = n_var),
+    so the reproducible ``sorted_segment_sum`` applies.
     """
     from svtyper_tpu.evidence.extract import (
         LIB_INVALID,
@@ -52,7 +94,6 @@ def classify_compact(
         VARS_I32,
     )
 
-    nseg = n_var + 1
     iv = {name: i for i, name in enumerate(VARS_I32)}
     ib = {name: i for i, name in enumerate(VARS_BOOL)}
 
@@ -70,9 +111,7 @@ def classify_compact(
     alt_seq_c = (l_pm * lhit + r_pm * rhit) * 0.5
     alt_clip_c = jnp.where((rf & R_CLIPHIT) != 0, pm, 0.0)
     counts_read = jnp.stack([ref_seq_c, alt_seq_c, alt_clip_c], axis=1)
-    per_var_read = jax.ops.segment_sum(
-        counts_read, rv, num_segments=nseg, indices_are_sorted=True
-    )
+    per_var_read = sorted_segment_sum(counts_read, rv, n_var)
 
     # ---- pairs (§4.3)
     pv = cp_u16[0].astype(jnp.int32)
@@ -115,21 +154,9 @@ def classify_compact(
     )
     ref_span_c = ref_span_c - del_move
     counts_pair = jnp.stack([ref_span_c, alt_span_c], axis=1)
-    per_var_pair = jax.ops.segment_sum(
-        counts_pair, pv, num_segments=nseg, indices_are_sorted=True
-    )
-
-    out = jnp.concatenate(
-        [
-            per_var_read[:n_var, 0:1],
-            per_var_read[:n_var, 1:2],
-            per_var_read[:n_var, 2:3],
-            per_var_pair[:n_var, 0:1],
-            per_var_pair[:n_var, 1:2],
-        ],
-        axis=1,
-    ).astype(dtype)
-    return out
+    per_var_pair = sorted_segment_sum(counts_pair, pv, n_var)
+    # [n_var, 5]: ref_seq, alt_seq, alt_clip, ref_span, alt_span
+    return jnp.concatenate([per_var_read, per_var_pair], axis=1).astype(dtype)
 
 
 def _edge_in_window(pos, end, tid, bp_tid, bp_pos, ci0, ci1, o_rev):

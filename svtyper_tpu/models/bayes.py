@@ -1,11 +1,9 @@
 """Scalar Bayesian genotype model — the float64 parity definition.
 
 Reconstruction of ``classic.py::bayes_gt`` and ``log_choose``
-(SURVEY.md §2.2, §8.1–2; SPEC.md §5). The engine's batched JAX/Pallas
-kernels (``svtyper_tpu/ops/gl.py``, ``svtyper_tpu/ops/pallas_gl.py``)
-must reproduce these values to output-format precision;
-``tests/test_pallas_gl.py`` and ``tests/test_engine_parity.py``
-enforce it.
+(SURVEY.md §2.2, §8.1–2; SPEC.md §5). The engine's batched JAX stage
+(``svtyper_tpu/ops/gl.py``) must reproduce these values to
+output-format precision; ``tests/test_engine_parity.py`` enforces it.
 """
 
 from __future__ import annotations

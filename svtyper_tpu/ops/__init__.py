@@ -1,9 +1,7 @@
-"""Device kernels (JAX/XLA + Pallas).
+"""Device math (JAX/XLA).
 
 - ``gl``: batched Bayesian genotype-likelihood stage (the parity twin of
   ``svtyper_tpu.models.bayes``; reference ``classic.py::bayes_gt``).
-- ``pallas_gl``: fused Pallas TPU kernel for the same stage (used on TPU
-  when profitable; the jnp path is the portable/parity reference).
 """
 
 from svtyper_tpu.ops.gl import genotype_batch, log_choose_table  # noqa: F401

@@ -27,9 +27,8 @@ LOG10_TINY = -323.6
 LN10 = math.log(10.0)
 
 # log10 p / log10 (1-p) per genotype, rows (non-dup, dup), rounded once
-# in float64. The float32 paths (XLA and Pallas) both build their
-# per-genotype scores from THESE constants so the two lowerings produce
-# bit-identical GT/GQ (see genotype_batch's float32 branch).
+# in float64. The float32 branch builds its per-genotype scores from
+# THESE constants (see genotype_batch).
 LOG_P_TABLE = np.asarray(
     [[math.log10(p) for p in ALT_PROBS],
      [math.log10(p) for p in ALT_PROBS_DUP]]
@@ -103,9 +102,8 @@ def genotype_batch(
     else:
         # float32 throughput path: lc is CONSTANT across the three
         # genotypes, so GT/GQ/SQ are computed from lc-free scores built
-        # from shared f64-rounded constants — bit-identical between this
-        # XLA lowering and the Pallas kernel (ops/pallas_gl.py), which
-        # uses a Stirling lgamma for lc and would otherwise drift GQ ±1.
+        # from f64-rounded constants: an f32 rounding of lc cannot move
+        # GT or GQ, and GL keeps lc only for its printed value.
         lp = jnp.where(
             is_dup[:, None],
             jnp.asarray(LOG_P_TABLE[1], dtype=dtype),

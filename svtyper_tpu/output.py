@@ -1,6 +1,6 @@
 """Genotype → VCF FORMAT-field emission (SPEC.md §6, SURVEY.md §2.4).
 
-Shared by every engine path (oracle, TPU, CLI) so the byte-parity
+Shared by every engine path (oracle, device, CLI) so the byte-parity
 surface lives in exactly one place.
 """
 

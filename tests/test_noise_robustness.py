@@ -4,7 +4,7 @@ clips, low-MAPQ ambiguity, chimeric SA tags, discordant background
 pairs — stresses the evidence model the way real repeats and clipping
 noise do. Two guarantees under noise:
 
-1. the TPU engine stays byte-identical to the float64 oracle
+1. the device engine stays byte-identical to the float64 oracle
    (robustness is a property of the ALGORITHM, not of one
    implementation), and
 2. GT concordance vs simulated truth stays above a floor well under

@@ -141,28 +141,117 @@ def test_engine_multidevice_byte_identical(tmp_path):
     assert called == len(bps)
 
 
-def test_shard_map_translates_check_vma_for_legacy_jax(monkeypatch):
-    """parallel.mesh.shard_map must rewrite check_vma -> check_rep when
-    the underlying jax shard_map predates the new kwarg."""
-    from svtyper_tpu.parallel import mesh as M
+@pytest.mark.parametrize(
+    "n_devices,n_given", [(16, None), (4, 2)],
+    ids=["default-backend", "explicit-devices"],
+)
+def test_make_mesh_raises_when_too_few_devices(n_devices, n_given):
+    """A mesh asked of too few devices is an error — never a quiet
+    fallback onto another backend's devices."""
+    devices = None if n_given is None else jax.devices()[:n_given]
+    with pytest.raises(ValueError, match="need %d devices" % n_devices):
+        make_mesh(n_devices, devices=devices)
+    assert make_mesh(2, devices=jax.devices()[:2]).devices.shape == (2,)
 
-    seen = {}
 
-    def legacy(f, mesh=None, in_specs=None, out_specs=None, check_rep=True):
-        seen["check_rep"] = check_rep
-        return f
+class _DensOnly:
+    """Stands in for a Sample where only the density table is read."""
 
-    monkeypatch.setattr(M, "_shard_map", legacy)
-    out = M.shard_map(lambda x: x, mesh=None, in_specs=None,
-                      out_specs=None, check_vma=False)
-    assert seen == {"check_rep": False}
-    assert out(7) == 7
+    name = "stub"
 
-    def modern(f, mesh=None, in_specs=None, out_specs=None, check_vma=True):
-        seen["check_vma"] = check_vma
-        return f
+    def dens_matrix(self):
+        return np.arange(12, dtype=np.float64).reshape(2, 6) / 100.0
 
-    monkeypatch.setattr(M, "_shard_map", modern)
-    M.shard_map(lambda x: x, mesh=None, in_specs=None,
-                out_specs=None, check_vma=False)
-    assert seen["check_vma"] is False
+
+def test_sharded_engine_places_wire_and_tables_on_the_mesh():
+    """Each device receives only its own row of the chunk's wire (no
+    scatter from device 0 inside the step), the per-device density
+    tables split the same way, and the log-choose table replicates."""
+    from jax.sharding import NamedSharding, PartitionSpec as P
+
+    from svtyper_tpu.gt import TpuEngine
+
+    engine = TpuEngine([_DensOnly()], chunk_size=16)
+    assert engine.sharded and engine.n_dev == 8
+    split = NamedSharding(engine.mesh, P("data"))
+    wire = np.arange(8 * 40, dtype=np.uint8).reshape(8, 40)
+    arr = engine._put_wire(wire)
+    assert arr.sharding.is_equivalent_to(split, arr.ndim)
+    shards = sorted(arr.addressable_shards, key=lambda s: s.index[0].start)
+    assert [s.device for s in shards] == engine.devices
+    for d, shard in enumerate(shards):
+        np.testing.assert_array_equal(np.asarray(shard.data), wire[d:d + 1])
+    dens = engine._dens_for(0)
+    assert dens.shape[0] == 8 and dens.sharding.is_equivalent_to(split, 3)
+    np.testing.assert_array_equal(
+        np.asarray(dens)[:, :2, :6],
+        np.broadcast_to(_DensOnly().dens_matrix(), (8, 2, 6)),
+    )
+    assert engine._lcf.sharding.is_fully_replicated
+    assert set(engine._lcf.sharding.device_set) == set(engine.devices)
+
+
+def test_engine_multidevice_f32_byte_identical(tmp_path):
+    """The shipped f32 configuration (x64 off): the sharded engine on
+    the 8-device mesh gives the single-device engine's rows, byte for
+    byte through the CLI formatting layer."""
+    import io
+
+    from svtyper_tpu.bamio.bam import BamFile
+    from svtyper_tpu.breakpoints import resolve_breakpoint
+    from svtyper_tpu.gt import TpuEngine
+    from svtyper_tpu.output import add_format_headers, apply_variant
+    from svtyper_tpu.simulate import (
+        Event, SimConfig, events_to_vcf, simulate_events,
+    )
+    from svtyper_tpu.stats import Sample
+    from svtyper_tpu.vcfio.model import Variant
+    from svtyper_tpu.vcfio.reader import read_vcf_lines
+
+    refs = [("chr1", 4_000_000)]
+    events = [
+        Event(["DEL", "DUP", "INV"][i % 3], "chr1", 300_000 + i * 250_000,
+              300_000 + i * 250_000 + 1200 + 83 * i,
+              ["0/1", "1/1", "0/0"][i % 3], var_id="f%d" % i)
+        for i in range(11)  # not a multiple of 8: exercises padding
+    ]
+    bam_path = str(tmp_path / "f32.bam")
+    simulate_events(bam_path, refs, events, SimConfig(depth=30), seed=21,
+                    extra_background=1000)
+    sample = Sample.from_bam(BamFile(bam_path), num_samp=50_000)
+    text = events_to_vcf(events, refs)
+    header, body = read_vcf_lines(io.StringIO(text))
+    body = list(body)
+    bps = [resolve_breakpoint(Variant(line, _vcf(header, sample.name)))
+           for line in body]
+
+    def render(rows):
+        vcf = _vcf(header, sample.name)
+        add_format_headers(vcf)
+        out = []
+        for line, row in zip(body, rows):
+            v = Variant(line, vcf)
+            apply_variant(v, [sample.name], row)
+            out.append(v.get_var_string())
+        return "\n".join(out)
+
+    jax.config.update("jax_enable_x64", False)
+    try:
+        multi = TpuEngine([sample], chunk_size=8)
+        single = TpuEngine([sample], chunk_size=8, devices=jax.devices()[:1])
+        assert multi.dtype == jnp.float32 and multi.n_dev == 8
+        rows_m = multi.genotype_all(bps)
+        rows_s = single.genotype_all(bps)
+    finally:
+        jax.config.update("jax_enable_x64", True)
+    assert render(rows_m) == render(rows_s)
+    assert sum(1 for r in rows_m if not r[0].null) == len(bps)
+
+
+def _vcf(header, sample_name):
+    from svtyper_tpu.vcfio.model import Vcf
+
+    vcf = Vcf()
+    vcf.add_header(header)
+    vcf.add_sample(sample_name)
+    return vcf
